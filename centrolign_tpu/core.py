@@ -41,8 +41,7 @@ def prepare_pair_step(sub1, sub2, max_count, score_function,
     """The scale-independent front half of one pairwise subproblem:
     sentinel reassignment, match finding, reachability. None of it reads
     the calibrated ``score_function.score_scale`` (anchor_weight is
-    scale-free; the scale enters only at anchoring), so the multi-host
-    scheduler overlaps this work with calibration. Returns
+    scale-free; the scale enters only at anchoring). Returns
     (matches, xm1, xm2, merge_cls)."""
     reassign_sentinels(sub1.graph, sub1.tableau, 5, 6)
     reassign_sentinels(sub2.graph, sub2.tableau, 7, 8)
@@ -71,19 +70,15 @@ def prepare_pair_step(sub1, sub2, max_count, score_function,
 def pairwise_align_step(sub1, sub2, max_count, score_function, anchorer,
                         partitioner, stitcher, match_finder=None,
                         is_main_execution=True,
-                        memory_restraint_size=1 << 30,
-                        prepared=None) -> np.ndarray:
+                        memory_restraint_size=1 << 30) -> np.ndarray:
     """One pairwise graph-graph alignment (the compute of one subproblem,
     reference core.hpp:256-403 minus the fuse): sentinel reassignment,
     match finding, reachability, chain/partition/stitch. Shared by the
-    serial Core.do_execution and the multi-host scheduler workers.
-    `prepared` accepts a precomputed prepare_pair_step result."""
+    serial Core.do_execution and the multi-host scheduler workers."""
     from .path_merge import PackedPathMerge
-    if prepared is None:
-        prepared = prepare_pair_step(
-            sub1, sub2, max_count, score_function, match_finder,
-            memory_restraint_size)
-    matches, xm1, xm2, merge_cls = prepared
+    matches, xm1, xm2, merge_cls = prepare_pair_step(
+        sub1, sub2, max_count, score_function, match_finder,
+        memory_restraint_size)
     anchors = anchorer.anchor_chain(
         matches, sub1.graph, sub2.graph, sub1.tableau, sub2.tableau,
         xm1, xm2)

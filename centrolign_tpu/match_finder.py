@@ -18,8 +18,8 @@ path_esa.hpp:80-170, esa.hpp:196-491):
 - Matches are walked out into node-id paths, deduplicated by (graph, start
   node), in suffix-array order (esa.hpp:613-665).
 
-This module is pure numpy host code (index construction is not a TPU-shaped
-workload); the joined-text suffix array uses prefix-doubling with
+This module is pure numpy host code (index construction is not a
+data-parallel device workload); the joined-text suffix array uses prefix-doubling with
 numpy lexsort, O(N log^2 N) vectorized.
 """
 

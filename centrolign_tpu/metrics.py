@@ -37,6 +37,15 @@ def record(tag: str, cells: int, seconds: float, detail: str = "") -> None:
               f"t={seconds * 1e9:.0f}ns {detail}", file=sys.stderr)
 
 
+def merge(other: dict) -> None:
+    """Add another process's counters ({tag: [n, cells, sec]}) to these."""
+    for tag, (n, cells, sec) in other.items():
+        c = counters[tag]
+        c[0] += n
+        c[1] += cells
+        c[2] += sec
+
+
 def timer() -> float:
     return time.perf_counter()
 
@@ -48,7 +57,7 @@ def summary() -> dict:
     total_sec = 0.0
     for tag, (n, cells, sec) in counters.items():
         out[tag] = {"count": n, "cells": cells, "seconds": round(sec, 4)}
-        if tag in ("po", "pod", "podag", "posh"):
+        if tag in ("po", "pod", "podag"):
             total_cells += cells
             total_sec += sec
     out["dp_cells"] = total_cells
@@ -56,10 +65,10 @@ def summary() -> dict:
     out["dp_cells_per_sec"] = (
         round(total_cells / total_sec) if total_sec > 0 else 0)
     # net device-blocked time and cells (every device-engine tag), so each
-    # bench round self-reports how much the chip actually contributed
+    # bench round self-reports how much the device actually contributed
     dev_cells = 0
     dev_sec = 0.0
-    for tag in ("pod", "podag", "posh"):
+    for tag in ("pod", "podag"):
         if tag in counters:
             dev_cells += counters[tag][1]
             dev_sec += counters[tag][2]

@@ -1,7 +1,7 @@
 """Native (C++) host runtime: compiled on demand with g++, loaded via ctypes.
 
 Holds the serial-sweep algorithms that are host-latency-bound rather than
-TPU-shaped: the sparse chaining DP (chain.cpp). The shared object is built
+data-parallel: the sparse chaining DP (chain.cpp) and the host aligners. The shared object is built
 into this directory and rebuilt whenever a source file changes (hash check).
 """
 
@@ -49,35 +49,49 @@ def _source_hash() -> str:
     return h.hexdigest()
 
 
-def _build() -> None:
+def _build(want: str) -> None:
+    """Compile into a private file, then rename it into place, so that a
+    process loading the library never sees a half-written one."""
     if _SANITIZE:
         opt = ["-O1", "-g", "-fsanitize=address,undefined",
                "-fno-sanitize-recover=all"]
     else:
         opt = ["-O3"]
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     cmd = ["g++", *opt, "-std=c++17", "-fPIC", "-shared", "-fopenmp",
-           "-o", _SO]
+           "-o", tmp]
     cmd += [os.path.join(_DIR, s) for s in _SOURCES]
     try:
         subprocess.run(cmd, check=True, capture_output=True)
     except subprocess.CalledProcessError:
         cmd.remove("-fopenmp")  # toolchains without libgomp
         subprocess.run(cmd, check=True, capture_output=True)
+    os.replace(tmp, _SO)
     with open(_HASH, "w") as f:
-        f.write(_source_hash())
+        f.write(want)
+
+
+def _built_hash():
+    if os.path.exists(_HASH) and os.path.exists(_SO):
+        with open(_HASH) as f:
+            return f.read().strip()
+    return None
 
 
 def get_lib() -> ctypes.CDLL:
+    """Load the library, building it first from the sources beside it when
+    it is missing or older than them. Concurrent first imports (test
+    workers, pool workers) take turns on a lock file and build once."""
     global _lib
     if _lib is not None:
         return _lib
     want = _source_hash()
-    have = None
-    if os.path.exists(_HASH) and os.path.exists(_SO):
-        with open(_HASH) as f:
-            have = f.read().strip()
-    if have != want:
-        _build()
+    if _built_hash() != want:
+        import fcntl
+        with open(_SO + ".lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if _built_hash() != want:
+                _build(want)
     lib = ctypes.CDLL(_SO)
     lib.chain_dp_seq.restype = ctypes.c_int64
     lib.chain_dp_seq.argtypes = [

@@ -21,10 +21,9 @@ subtraction) keep their f64 intermediates — per-anchor f64 constants
 (scale*ge[k]*shift_i and scale*(go[k] +/- ge[k]*qshift_j)) are computed on
 the host with numpy f64 in the native engine's op order, and the kernel
 performs only f64 widen/add/sub/round, under a scoped x64 context (jax.enable_x64). On
-backends with IEEE f64 (CPU meshes; TPU via XLA's f64 emulation when
-available) dp/tie/struct/stored are bit-identical to the native engine —
-asserted by tests/test_chain_cdq.py. If the backend rejects f64 the
-caller falls back to the native engine.
+backends with IEEE f64 (the CPU, and the GPU natively) dp/tie/struct/stored
+are bit-identical to the native engine — asserted by
+tests/test_chain_cdq.py.
 
 Backpointers: anchors whose winning channel has a unique achiever get the
 exact backpointer; tied steps are flagged and re-resolved by the caller's

@@ -1,10 +1,11 @@
-"""Anti-diagonal wavefront Gotoh kernel (sequence × sequence), TPU-native.
+"""Anti-diagonal wavefront Gotoh fill (sequence × sequence) in plain lax:
+the oracle of the device kernels (ops/gotoh_pallas.py).
 
 The hot inner loop of stitching (reference po_poa on chain subgraphs,
-alignment.hpp:897-938) recast for the TPU: the DP matrix is *skewed* so each
-anti-diagonal d = i + j is a contiguous vector over lanes, and the whole fill
-is a scan over diagonals with only element-shifts between steps — no gathers,
-no data-dependent control flow. Cells are int32 {M, I[pw], D[pw]} exactly as
+alignment.hpp:897-938) recast as a data-parallel scan: the DP matrix is
+*skewed* so each anti-diagonal d = i + j is a contiguous vector over
+lanes, and the whole fill is a scan over diagonals with only element-shifts
+between steps — no gathers, no data-dependent control flow. Cells are int32 {M, I[pw], D[pw]} exactly as
 the reference (IntDP, alignment.hpp:736); values at every reachable cell are
 bit-identical to the reference DP, so the packed backpointers reproduce the
 reference's traceback tie-breaking:
@@ -150,16 +151,18 @@ def _bucket(n: int, quantum: int = 256) -> int:
 def _gotoh_scan(seq_a, seq_b_revpad, V1, V2, match, mismatch, go, ge,
                 num_diags: int, lane_is_i: bool, npw: int, swap_pref: bool):
     """lax.scan implementation over anti-diagonals (runs on any backend).
-    Returns (bp matrix (num_diags, W) uint16, per-diagonal M rows for score).
-    V1/V2 are traced so one compile serves a whole shape bucket; diagonals
-    beyond V1+V2 produce masked junk that the traceback never visits."""
+    Returns (bp matrix (num_diags, W) uint16, score of the opt cell (V1, V2)
+    int32). V1/V2 are traced so one compile serves a whole shape bucket;
+    diagonals beyond V1+V2 produce masked junk that the traceback never
+    visits."""
     W = seq_a.shape[0]
     other_len = V2 if lane_is_i else V1
+    last_lane = V1 if lane_is_i else V2
 
     lane = jnp.arange(W, dtype=jnp.int32)
 
     def step(carry, d):
-        Mrow1, Mrow2, Irow1, Drow1 = carry
+        Mrow1, Mrow2, Irow1, Drow1, score = carry
         if lane_is_i:
             i_vec, j_vec = lane, d - lane
         else:
@@ -171,14 +174,15 @@ def _gotoh_scan(seq_a, seq_b_revpad, V1, V2, match, mismatch, go, ge,
         Mnew, Inew, Dnew, bp = _diag_math(
             Mrow1, Mrow2, Irow1, Drow1, score_vec, lane_is_i, i_vec, j_vec,
             V1, V2, go, ge, swap_pref)
-        return (Mnew, Mrow1, Inew, Dnew), (bp.astype(jnp.uint16), Mnew)
+        score = jnp.where(d == V1 + V2, Mnew[last_lane], score)
+        return (Mnew, Mrow1, Inew, Dnew, score), bp.astype(jnp.uint16)
 
     M0 = jnp.full((W,), _NEG, jnp.int32)
     I0 = jnp.full((npw, W), _NEG, jnp.int32)
-    carry0 = (M0, M0, I0, I0)
-    _, (bp_all, M_all) = jax.lax.scan(
+    carry0 = (M0, M0, I0, I0, _NEG)
+    (*_, score), bp_all = jax.lax.scan(
         step, carry0, jnp.arange(num_diags, dtype=jnp.int32))
-    return bp_all, M_all
+    return bp_all, score
 
 
 def gotoh_align(seq1: np.ndarray, seq2: np.ndarray, params: AlignmentParams,
@@ -196,7 +200,7 @@ def gotoh_align(seq1: np.ndarray, seq2: np.ndarray, params: AlignmentParams,
 
     lane_is_i = V1 <= V2
     W = (V1 if lane_is_i else V2) + 1
-    # pad W to the lane width for TPU friendliness / compile-cache hits
+    # pad W and the diagonal count to bound the number of compiled shapes
     Wpad = _bucket(W, 128)
     num_diags = _bucket(V1 + V2 + 1, 256)
 
@@ -204,14 +208,12 @@ def gotoh_align(seq1: np.ndarray, seq2: np.ndarray, params: AlignmentParams,
     go = jnp.asarray(params.gap_open, dtype=jnp.int32)
     ge = jnp.asarray(params.gap_extend, dtype=jnp.int32)
 
-    bp_all, M_all = _gotoh_scan(
+    bp_all, score = _gotoh_scan(
         jnp.asarray(a), jnp.asarray(b), jnp.int32(V1), jnp.int32(V2),
         params.match, params.mismatch, go, ge,
         num_diags, lane_is_i, npw, swap_pref)
-    bp_np = np.asarray(jax.device_get(bp_all))
-    # score at padded (V1, V2): diagonal d = V1+V2, lane = V1 or V2
-    last_lane = V1 if lane_is_i else V2
-    score = int(np.asarray(M_all)[V1 + V2, last_lane])
+    bp_np, score = jax.device_get((bp_all, score))
+    score = int(score)
 
     aln = _traceback_bp(bp_np, V1, V2, lane_is_i, npw)
     return aln, score

@@ -1,28 +1,6 @@
-"""Multi-chip parallelism: device meshes, sharded DP kernels, and the
-collective patterns that replace the reference's (absent) communication
-backend (SURVEY.md §2.8, §5.8).
-
-Axes of parallelism exploited by this package:
-- ``gap``: data-parallel batches of independent gap matrices (the reference
-  stitches them serially, stitcher.hpp:157-203).
-- ``lane``: sequence-parallel sharding of one large DP matrix's anti-diagonal
-  across chips with halo exchange over ICI (the reference caps full DP at
-  40M cells because it is single-threaded; we shard past that).
-- ``sub``: subproblem data-parallelism over independent guide-tree siblings
-  (reference executes them serially, src/execution.cpp:83-124).
-"""
+"""Subproblem data-parallelism over independent guide-tree siblings (the
+reference executes them serially, src/execution.cpp:83-124): each layer of
+the guide tree fans out over a pool of worker processes, one card each
+(parallel/scheduler.py)."""
 
 from .scheduler import distributed_execute  # noqa: F401
-
-_SHARDED = ("sharded_gotoh_scores", "sharded_gotoh_align",
-            "make_alignment_mesh")
-
-
-def __getattr__(name):
-    # The sharded-DP module imports jax; importing it eagerly would tax every
-    # CLI run (including --hosts runs with the device disabled) with jax
-    # import time. Resolve those names on first use instead.
-    if name in _SHARDED:
-        from . import sharded_gotoh
-        return getattr(sharded_gotoh, name)
-    raise AttributeError(name)

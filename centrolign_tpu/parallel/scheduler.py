@@ -8,15 +8,16 @@ members can run on different hosts concurrently. This module dispatches each
 layer over a pool of worker processes and gathers the fused parent graphs
 for the next layer.
 
-Process model / transport: one OS process per "host" here; on a TPU pod the
-identical layer schedule runs with one process per physical host (each
-probing its own chips) and the same per-subproblem payloads exchanged over
-DCN — the unit of exchange (a completed subproblem's graph) is exactly the
-reference's checkpoint contract (GFA per subproblem, reference
-src/execution.cpp:223-279). In-process transport uses pickled graph arrays
-so distributed results are bit-identical to the serial path (GFA text is
-the durable on-disk form; -S files written by the main process match the
-serial run byte-for-byte).
+Process model / transport: one OS process per worker; the main process
+only orchestrates and never opens the device itself. Each worker gets its
+own card (CUDA_VISIBLE_DEVICES from its worker index, set before it imports
+JAX); workers beyond the card count share cards, each with an equal share
+of the card's memory. The unit of exchange (a completed subproblem's graph)
+is exactly the reference's checkpoint contract (GFA per subproblem,
+reference src/execution.cpp:223-279). In-process transport uses pickled
+graph arrays so distributed results are bit-identical to the serial path
+(GFA text is the durable on-disk form; -S files written by the main process
+match the serial run byte-for-byte).
 
 Determinism: every subproblem's result depends only on its two children and
 the calibrated parameters, so the distributed output is byte-identical to
@@ -31,20 +32,26 @@ and tests/test_scheduler.py.
 
 from __future__ import annotations
 
+import contextlib
 import multiprocessing as mp
 import os
 import pickle
 from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures.process import BrokenProcessPool
 
 import numpy as np
 
 from .. import logging as logmod
 
 
+# This worker's index and card, set by _init_worker.
+_worker = {"index": None, "card": None}
+
+
 def _test_failure_hook() -> None:
-    """Failure injection for the recovery tests: '1' raises in the worker
-    (the future carries the exception), '2' kills the worker process
-    outright (the pool breaks and must be rebuilt)."""
+    """Failure injection for the scheduler tests: '1' raises in the worker
+    (the error reaches the main process and ends the run), '2' kills the
+    worker process outright (the pool breaks and must be rebuilt)."""
     mode = os.environ.get("CENTROLIGN_TPU_TEST_WORKER_FAIL", "0")
     if mode == "1":
         raise RuntimeError("injected worker failure (test hook)")
@@ -54,10 +61,13 @@ def _test_failure_hook() -> None:
 
 def _worker_align(cfg_bytes, payload1, payload2):
     """Run one pairwise subproblem: returns pickled (graph, tableau,
-    alignment) of the fused parent."""
+    alignment) of the fused parent and (worker index, card, the task's
+    aligner counters of metrics.py)."""
     _test_failure_hook()
+    from .. import metrics
     from ..core import pairwise_align_step, fuse_step
     from ..execution import Subproblem
+    metrics.reset()
     (max_count, score_function, anchorer, partitioner, stitcher,
      memory_restraint_size) = pickle.loads(cfg_bytes)
     sub1, sub2 = Subproblem(), Subproblem()
@@ -67,7 +77,8 @@ def _worker_align(cfg_bytes, payload1, payload2):
         sub1, sub2, max_count, score_function, anchorer, partitioner,
         stitcher, memory_restraint_size=memory_restraint_size)
     graph, tableau = fuse_step(sub1, sub2, alignment)
-    return pickle.dumps((graph, tableau, alignment),
+    report = (_worker["index"], _worker["card"], dict(metrics.counters))
+    return pickle.dumps((graph, tableau, alignment, report),
                         protocol=pickle.HIGHEST_PROTOCOL)
 
 
@@ -105,29 +116,73 @@ def _worker_leaf_bonds(cfg_bytes, payload):
                         protocol=pickle.HIGHEST_PROTOCOL)
 
 
+def worker_env(index: int, n_workers: int, cards: list) -> dict:
+    """Environment of pool worker `index` of `n_workers` on the visible
+    `cards`: one card each, round robin. Workers that share a card split
+    the memory JAX reserves for one process (0.9 of the card, leaving room
+    for each process's CUDA context). Empty without cards."""
+    if not cards:
+        return {}
+    slot = index % len(cards)
+    sharing = len(range(slot, n_workers, len(cards)))
+    env = {"CUDA_VISIBLE_DEVICES": str(cards[slot])}
+    if sharing > 1:
+        env["XLA_PYTHON_CLIENT_MEM_FRACTION"] = f"{0.9 / sharing:.3f}"
+    return env
+
+
+def _init_worker(envs, counter, level) -> None:
+    """Pool initializer: claim the next worker index, take its card, and
+    (on the device path) open the card now, so that JAX's start-up
+    overlaps the first tasks and a card that cannot be opened fails here."""
+    with counter.get_lock():
+        index = counter.value
+        counter.value += 1
+    os.environ.update(envs[index])
+    _worker.update(index=index,
+                   card=envs[index].get("CUDA_VISIBLE_DEVICES", "default"))
+    logmod.level = level
+    from ..device import use_device
+    if use_device():
+        from ..device import device_kind
+        info = device_kind()
+        logmod.log(logmod.Basic,
+                   f"Worker {index} opened {info['platform']} device "
+                   f"{info['kind']!r} on card {_worker['card']}.")
+
+
 _pool = None
 _pool_hosts = 0
 
 
 def _worker_pool(n_hosts: int) -> ProcessPoolExecutor:
     """Process pool reused across calls: spawn + package import in a fresh
-    worker costs ~2 s, which would otherwise land on every run's first
+    worker costs seconds, which would otherwise land on every run's first
     layer (and on every benchmark rep)."""
     global _pool, _pool_hosts
     if _pool is None or _pool_hosts != n_hosts:
         if _pool is not None:
             _pool.shutdown(wait=False)
-        _pool = ProcessPoolExecutor(max_workers=n_hosts,
-                                    mp_context=mp.get_context("spawn"))
+        from ..device import visible_cards
+        cards = visible_cards()
+        envs = [worker_env(i, n_hosts, cards) for i in range(n_hosts)]
+        for i, env in enumerate(envs):
+            if env:
+                logmod.log(logmod.Basic, f"Worker {i}: " + " ".join(
+                    f"{k}={v}" for k, v in env.items()))
+        ctx = mp.get_context("spawn")
+        _pool = ProcessPoolExecutor(
+            max_workers=n_hosts, mp_context=ctx, initializer=_init_worker,
+            initargs=(envs, ctx.Value("i", 0), logmod.level))
         _pool_hosts = n_hosts
     return _pool
 
 
 def _rebuild_pool(n_hosts: int) -> ProcessPoolExecutor:
-    """Discard a (possibly broken) pool and spawn a fresh one: after a
-    worker dies (OOM kill, chip-link crash) the executor refuses further
-    submissions, but the scheduler can keep going — failed subproblems are
-    recomputed inline and later layers get new workers."""
+    """Discard a broken pool and spawn a fresh one: after a worker process
+    dies (killed for memory, say) the executor refuses further submissions,
+    but the scheduler can keep going — the lost subproblems are recomputed
+    in the main process and later layers get new workers."""
     global _pool
     if _pool is not None:
         _pool.shutdown(wait=False)
@@ -153,18 +208,31 @@ def distributed_execute(core, n_hosts: int) -> None:
                        or cyclic
                        or len(ex.execution_order) == 1)
 
+    from .. import metrics
     pool = _worker_pool(n_hosts)
     failed = [False]
 
-    def _recover(what: str, exc: BaseException):
-        """Worker-failure path: log, remember to rebuild the pool before the
-        next fan-out, and let the caller recompute inline. Failure of a
-        worker is never fatal — the main process holds every input."""
-        nonlocal pool
+    def _recover(what: str, exc: BrokenProcessPool):
+        """A worker process died: log, remember to rebuild the pool before
+        the next fan-out, and let the caller recompute `_locally` — the main
+        process holds every input. Only a dead process is recovered from;
+        an error raised inside a worker (the device's included) propagates
+        and ends the run."""
         logmod.log(logmod.Minimal,
-                   f"Worker failed during {what} ({type(exc).__name__}: "
-                   f"{exc}); recomputing locally.")
+                   f"Worker failed during {what} (its process died: "
+                   f"{exc}); recomputing locally on the native path.")
         failed[0] = True
+
+    @contextlib.contextmanager
+    def _locally():
+        """Recompute in the main process on the native engines: the
+        workers hold the cards."""
+        saved = core.stitcher.use_device
+        core.stitcher.use_device = False
+        try:
+            yield
+        finally:
+            core.stitcher.use_device = saved
 
     def _fresh_pool():
         nonlocal pool
@@ -174,45 +242,22 @@ def distributed_execute(core, n_hosts: int) -> None:
         return pool
 
     def _submit(what, fn, *args):
-        """submit() itself can raise once a worker has died (broken pool);
-        a None future tells the gather site to recompute inline."""
+        """submit() itself raises once a worker has died (broken pool); a
+        None future tells the gather site to recompute locally."""
         try:
             return pool.submit(fn, *args)
-        except Exception as e:  # BrokenProcessPool, RuntimeError on shutdown
+        except BrokenProcessPool as e:
             _recover(what, e)
             return None
 
-    def _gather_scales(futs, scale_leaves):
-        from ..core import leaf_intrinsic_scale
-        out = []
-        for f, s in zip(futs, scale_leaves):
-            try:
-                if f is None:
-                    raise RuntimeError("submission failed")
-                out.append(float(f.result()))
-            except Exception as e:
-                _recover(f"calibration of {s.name}", e)
-                out.append(float(leaf_intrinsic_scale(
-                    s, core.max_count, core.score_function,
-                    core.anchorer)[0]))
-        return out
+    def _result(fut):
+        if fut is None:
+            raise BrokenProcessPool("submission failed")
+        return fut.result()
 
     # ---- calibration: per-leaf scale estimates, embarrassingly
-    # parallel (reference src/core.cpp:122-175 runs them serially).
-    # The main process overlaps calibration with the first layer's
-    # scale-INDEPENDENT work (match finding + reachability for the
-    # subproblem it will run inline, core.prepare_pair_step) — the
-    # calibrated scale is only read at anchoring. When there is no
-    # first-layer work to overlap, the last leaf runs inline instead of
-    # idling while workers spawn.
+    # parallel (reference src/core.cpp:122-175 runs them serially)
     layers = ex.independent_layers()
-    inline_prepared = None
-    inline_node = None
-    if not cyclic and not restarted and layers:
-        first_pending = [n for n in layers[0]
-                         if not ex.subproblems[n].complete]
-        if first_pending:
-            inline_node = first_pending[-1]
     scales = []
     leaves = list(ex.leaf_subproblems())
     if not core.skip_calibration or cyclic:
@@ -223,24 +268,19 @@ def distributed_execute(core, n_hosts: int) -> None:
                    "identifying tandem duplications.")
         cfg0 = pickle.dumps(
             (core.max_count, core.score_function, core.anchorer))
-        from ..core import leaf_intrinsic_scale, prepare_pair_step
-        inline_leaves = leaves if inline_node is not None else leaves[:-1]
         futs = [_submit(f"calibration of {s.name}", _worker_scale, cfg0,
                         pickle.dumps((s.graph, s.tableau)))
-                for s in inline_leaves]
-        if inline_node is not None:
-            c1, c2 = tree.get_children(inline_node)
-            inline_prepared = prepare_pair_step(
-                ex.subproblems[c1], ex.subproblems[c2], core.max_count,
-                core.score_function,
-                memory_restraint_size=core.memory_restraint_size)
-            scales = _gather_scales(futs, inline_leaves)
-        else:
-            inline_scale = (float(leaf_intrinsic_scale(
-                leaves[-1], core.max_count, core.score_function,
-                core.anchorer)[0]) if leaves else 0.0)
-            scales = _gather_scales(futs, inline_leaves) + (
-                [inline_scale] if leaves else [])
+                for s in leaves]
+        for f, s in zip(futs, leaves):
+            try:
+                scales.append(float(_result(f)))
+            except BrokenProcessPool as e:
+                _recover(f"calibration of {s.name}", e)
+                from ..core import leaf_intrinsic_scale
+                with _locally():
+                    scales.append(float(leaf_intrinsic_scale(
+                        s, core.max_count, core.score_function,
+                        core.anchorer)[0]))
         for sub, scale in zip(leaves, scales):
             logmod.log(logmod.Debug,
                        f"Computed intrinsic scale of {scale} for "
@@ -264,20 +304,20 @@ def distributed_execute(core, n_hosts: int) -> None:
                 for i, s in enumerate(leaves)]
         for i, (sub, fut) in enumerate(zip(leaves, futs)):
             try:
-                if fut is None:
-                    raise RuntimeError("submission failed")
-                alns, raw = pickle.loads(fut.result())
-            except Exception as e:
+                alns, raw = pickle.loads(_result(fut))
+            except BrokenProcessPool as e:
                 _recover(f"bonding rounds of {sub.name}", e)
                 from ..core import (leaf_intrinsic_scale,
                                     leaf_bond_alignments)
-                _s, matches, chain = leaf_intrinsic_scale(
-                    sub, core.max_count, core.score_function, core.anchorer)
-                alns, raw = leaf_bond_alignments(
-                    sub, scales[i], matches, chain, core.anchorer,
-                    core.bonder, core.stitcher,
-                    core.max_tandem_duplication_search_rounds,
-                    collect_raw=bool(core.bonds_prefix))
+                with _locally():
+                    _s, matches, chain = leaf_intrinsic_scale(
+                        sub, core.max_count, core.score_function,
+                        core.anchorer)
+                    alns, raw = leaf_bond_alignments(
+                        sub, scales[i], matches, chain, core.anchorer,
+                        core.bonder, core.stitcher,
+                        core.max_tandem_duplication_search_rounds,
+                        collect_raw=bool(core.bonds_prefix))
             if core.bonds_prefix:
                 for k, raw_aln in enumerate(raw):
                     core.output_bond_alignment(raw_aln, sub.graph, 0, k)
@@ -298,53 +338,34 @@ def distributed_execute(core, n_hosts: int) -> None:
                    "host(s).")
         pending = [node_id for node_id in layer
                    if not ex.subproblems[node_id].complete]
-        # the last subproblem of every layer runs inline in the main
-        # process: no pickling round-trip, and on the device path the
-        # main process is the only one with a warm accelerator link
         _fresh_pool()
         futs = {}
-        for node_id in pending[:-1]:
+        for node_id in pending:
             c1, c2 = tree.get_children(node_id)
             s1, s2 = ex.subproblems[c1], ex.subproblems[c2]
             futs[node_id] = _submit(
                 f"subproblem {node_id}", _worker_align, cfg,
                 pickle.dumps((s1.graph, s1.tableau)),
                 pickle.dumps((s2.graph, s2.tableau)))
-        if pending:
-            from ..core import pairwise_align_step, fuse_step
-            node_id = pending[-1]
-            c1, c2 = tree.get_children(node_id)
-            s1, s2 = ex.subproblems[c1], ex.subproblems[c2]
-            parent = ex.subproblems[node_id]
-            prepared = (inline_prepared
-                        if li == 0 and node_id == inline_node else None)
-            parent.alignment = pairwise_align_step(
-                s1, s2, core.max_count, core.score_function,
-                core.anchorer, core.partitioner, core.stitcher,
-                memory_restraint_size=core.memory_restraint_size,
-                prepared=prepared)
-            # preserve=keep_graphs: the deferred emit loop below may
-            # still need the child graphs the in-place fuse would
-            # otherwise consume (workers operate on pickled copies, so
-            # only the inline node needs this)
-            parent.graph, parent.tableau = fuse_step(
-                s1, s2, parent.alignment, preserve=keep_graphs)
-            parent.complete = True
-            computed.add(node_id)
         for node_id, fut in futs.items():
             try:
-                if fut is None:
-                    raise RuntimeError("submission failed")
-                graph, tableau, alignment = pickle.loads(fut.result())
-            except Exception as e:
+                graph, tableau, alignment, (worker, card, counters) = \
+                    pickle.loads(_result(fut))
+                metrics.merge(counters)
+                pod = counters.get("pod", (0, 0, 0.0))
+                logmod.log(logmod.Basic,
+                           f"Subproblem {node_id}: worker {worker} on card "
+                           f"{card}, {pod[1]} cells filled on the device.")
+            except BrokenProcessPool as e:
                 _recover(f"subproblem {node_id}", e)
                 from ..core import pairwise_align_step, fuse_step
                 c1, c2 = tree.get_children(node_id)
                 s1, s2 = ex.subproblems[c1], ex.subproblems[c2]
-                alignment = pairwise_align_step(
-                    s1, s2, core.max_count, core.score_function,
-                    core.anchorer, core.partitioner, core.stitcher,
-                    memory_restraint_size=core.memory_restraint_size)
+                with _locally():
+                    alignment = pairwise_align_step(
+                        s1, s2, core.max_count, core.score_function,
+                        core.anchorer, core.partitioner, core.stitcher,
+                        memory_restraint_size=core.memory_restraint_size)
                 graph, tableau = fuse_step(s1, s2, alignment,
                                            preserve=keep_graphs)
             parent = ex.subproblems[node_id]

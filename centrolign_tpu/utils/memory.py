@@ -37,23 +37,15 @@ def format_memory_usage(mem: int) -> str:
 
 
 def hbm_usage() -> int:
-    """Bytes in use on the first accelerator device, or -1.
-
-    Only queried once jax is already initialized in this process AND the
-    device-probe guard has not ruled the link out: a cold jax call on a dead
-    link can block forever, and the subprocess probe in device.py exists
-    precisely so the pipeline never makes that first call blind."""
+    """Bytes in use on the first device, or -1 when this process has not
+    imported JAX (a memory report must not start the device on its own)
+    or the backend keeps no statistics."""
     import sys
     if "jax" not in sys.modules:
         return -1
-    if os.environ.get("CENTROLIGN_TPU_USE_DEVICE", "1") == "0":
-        return -1
-    try:
-        import jax
-        stats = jax.local_devices()[0].memory_stats()
-        return int(stats.get("bytes_in_use", -1)) if stats else -1
-    except Exception:
-        return -1
+    import jax
+    stats = jax.local_devices()[0].memory_stats()
+    return int(stats.get("bytes_in_use", -1)) if stats else -1
 
 
 def log_memory_usage(level: int) -> None:

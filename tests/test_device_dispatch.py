@@ -1,12 +1,12 @@
-"""End-to-end forced-device stitcher dispatch.
+"""End-to-end device stitcher dispatch.
 
 Pushes gaps through the public ``Stitcher.stitch`` entry with the device
-path forced ON so they ride ``_Pending`` -> ``_flush_pending``'s batched
-launches: chain x chain gaps through the batched Gotoh entry (Pallas on
-TPU; its bit-identical lax.scan twin on the CPU backend used here) and
-DAG x DAG gaps through the topological-wavefront kernel (ops/popoa_dag.py,
-pure jax — runs anywhere). Output must be byte-identical to the native
-path.
+threshold lowered so they ride ``_Pending`` -> the asynchronous bucket
+launches -> ``_flush_pending``: chain x chain gaps through the batched
+Gotoh entry (ops/gotoh_pallas.py: the Triton-route kernels, here in
+interpret mode) and DAG x DAG
+gaps through the topological-wavefront kernel (ops/popoa_dag.py, pure
+jax — runs anywhere). Output must be byte-identical to the native path.
 
 This is the guard for the round-2 field failure: a type-confused dispatch
 in ``_flush_pending`` crashed every run that queued a chain device gap, and
@@ -90,12 +90,11 @@ def _setup(build1, build2, anchor_len=24):
 
 
 def _run_both(args, monkeypatch):
-    """Stitch natively and with the device path forced; compare."""
+    """Stitch natively and through the device path; compare."""
     monkeypatch.delenv("CENTROLIGN_TPU_USE_DEVICE", raising=False)
     monkeypatch.setenv("CENTROLIGN_TPU_DEVICE_DAG", "1")
     native = Stitcher(use_device=False).stitch(*args)
 
-    monkeypatch.setenv("CENTROLIGN_TPU_USE_DEVICE", "force")
     metrics.reset()
     st = Stitcher()
     st.device_min_cells = 1
@@ -104,7 +103,7 @@ def _run_both(args, monkeypatch):
     n_dev = (summ.get("pod", {}).get("count", 0)
              + summ.get("podag", {}).get("count", 0))
     assert n_dev >= 1, (
-        "forced-device run never dispatched a device batch: "
+        "device run never dispatched a device batch: "
         f"{ {k: v for k, v in summ.items() if isinstance(v, dict)} }")
     assert np.array_equal(forced, native)
 
@@ -168,25 +167,77 @@ def test_forced_device_mixed_batch(monkeypatch):
     _run_both(args, monkeypatch)
 
 
-def test_sharded_gap_through_stitch(monkeypatch):
-    """Sequence-parallel tier (SURVEY §5.7) reachable from production: a
-    chain x chain gap >= shard_min_cells lane-shards across the whole
-    device mesh (8 virtual CPU devices here) inside Stitcher.stitch and
-    must equal the native PO-POA byte-for-byte."""
-    rng = np.random.default_rng(4242)
-    s1, s2 = _seqs(rng, mid_len=500)
+def test_native_only_switch(monkeypatch):
+    """CENTROLIGN_TPU_USE_DEVICE=0 keeps every gap on the native engines:
+    no device batch, same output as the device path."""
+    rng = np.random.default_rng(90210)
+    s1, s2 = _seqs(rng)
     args = _setup(_chain_graph(s1), _chain_graph(s2))
-
-    monkeypatch.delenv("CENTROLIGN_TPU_USE_DEVICE", raising=False)
-    native = Stitcher(use_device=False).stitch(*args)
-
-    monkeypatch.setenv("CENTROLIGN_TPU_USE_DEVICE", "force")
+    monkeypatch.setenv("CENTROLIGN_TPU_USE_DEVICE", "0")
     metrics.reset()
     st = Stitcher()
-    st.shard_min_cells = 1000  # force the mid gap onto the sharded tier
-    sharded = st.stitch(*args)
-    summ = metrics.summary()
-    assert summ.get("posh", {}).get("count", 0) >= 1, (
-        "sharded tier never engaged: "
-        f"{ {k: v for k, v in summ.items() if isinstance(v, dict)} }")
-    assert np.array_equal(sharded, native)
+    st.device_min_cells = 1
+    assert st.use_device is False
+    native = st.stitch(*args)
+    assert "pod" not in metrics.summary()
+    monkeypatch.delenv("CENTROLIGN_TPU_USE_DEVICE")
+    st = Stitcher()
+    st.device_min_cells = 1
+    assert np.array_equal(st.stitch(*args), native)
+    assert metrics.summary()["pod"]["count"] == 1
+
+
+def test_mixed_buckets_async(monkeypatch):
+    """Gaps of several compile buckets in one stitch call: each bucket
+    launches asynchronously and every result lands in its own slot."""
+    rng = np.random.default_rng(4242)
+    AL = 24
+    parts1, parts2 = [], []
+    mids = [(150, 170), (300, 260), (90, 140), (170, 150)]
+    for L1, L2 in mids:
+        parts1 += [rng.integers(0, 4, AL), rng.integers(0, 4, L1)]
+        m = rng.integers(0, 4, L2)
+        m[:min(L1, L2)] = parts1[-1][:min(L1, L2)]
+        m[::7] = (m[::7] + 1) % 4
+        parts2 += [parts1[-2], m]
+    tail = rng.integers(0, 4, AL)
+    s1 = np.concatenate(parts1 + [tail])
+    s2 = np.concatenate(parts2 + [tail])
+    g1, ids1 = _chain_graph(s1)
+    g2, ids2 = _chain_graph(s2)
+    t1, t2 = add_sentinels(g1, 5, 6), add_sentinels(g2, 7, 8)
+    xm1, xm2 = PathMerge(g1, t1), PathMerge(g2, t2)
+    anchors, o1, o2 = [], 0, 0
+    for L1, L2 in mids:
+        anchors.append(Anchor(walk1=ids1[o1:o1 + AL], walk2=ids2[o2:o2 + AL],
+                              count1=1, count2=1, full_length=AL, score=1.0))
+        o1, o2 = o1 + AL + L1, o2 + AL + L2
+    anchors.append(Anchor(walk1=ids1[o1:o1 + AL], walk2=ids2[o2:o2 + AL],
+                          count1=1, count2=1, full_length=AL, score=1.0))
+    args = ([anchors], g1, g2, t1, t2, xm1, xm2)
+
+    from centrolign_tpu.ops import gotoh_pallas
+    launched = []
+    dispatch = gotoh_pallas.gotoh_dispatch
+    monkeypatch.setattr(gotoh_pallas, "gotoh_dispatch", lambda b, jobs: (
+        launched.append((b, len(jobs))), dispatch(b, jobs))[1])
+    _run_both(args, monkeypatch)
+    assert len(launched) >= 3, launched
+    assert sum(n for _, n in launched) == len(mids)
+
+
+def test_chain_gaps_native_off_gpu(monkeypatch):
+    """Where the kernels do not run (a CPU backend, not interpreted), chain
+    gaps stay on the native engines: no device batch, same output."""
+    from centrolign_tpu.ops import gotoh_pallas
+    rng = np.random.default_rng(90210)
+    s1, s2 = _seqs(rng)
+    args = _setup(_chain_graph(s1), _chain_graph(s2))
+    monkeypatch.delenv("CENTROLIGN_TPU_USE_DEVICE", raising=False)
+    native = Stitcher(use_device=False).stitch(*args)
+    monkeypatch.setattr(gotoh_pallas, "INTERPRET", False)
+    metrics.reset()
+    st = Stitcher()
+    st.device_min_cells = 1
+    assert np.array_equal(st.stitch(*args), native)
+    assert "pod" not in metrics.summary()

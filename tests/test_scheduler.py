@@ -138,7 +138,7 @@ def test_distributed_restart_matches_serial(tmp_path):
     assert out_dist == out_ser == out_first, "restarted GFA differs"
 
 
-def _run_fail(fa, out_dir, extra, fail_mode, cyclic=False):
+def _run_fail(fa, out_dir, extra, fail_mode, cyclic=False, rc=0):
     env = dict(os.environ, CENTROLIGN_TPU_USE_DEVICE="0",
                CENTROLIGN_TPU_TEST_WORKER_FAIL=fail_mode)
     cyc = ["-c", "-y", "900"] if cyclic else []
@@ -147,17 +147,16 @@ def _run_fail(fa, out_dir, extra, fail_mode, cyclic=False):
          "-s", str(out_dir / "sub.txt"), "-S", str(out_dir / "cp"),
          *extra, str(fa)],
         capture_output=True, text=True, timeout=900, cwd=REPO, env=env)
-    assert r.returncode == 0, r.stderr[-1500:]
+    assert (r.returncode == 0) == (rc == 0), r.stderr[-1500:]
     return r.stdout, r.stderr
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("fail_mode", ["1", "2"])
+@pytest.mark.parametrize("fail_mode", ["2"])
 def test_worker_failure_recovery(tmp_path, fail_mode):
-    """Elastic recovery: with every worker task failing — mode 1 raises in
-    the task, mode 2 kills the worker process outright (broken pool) — the
-    scheduler recomputes each subproblem inline and the outputs stay
-    byte-identical to the serial run."""
+    """Recovery from dead workers: with every worker process killed
+    outright (broken pool), the scheduler recomputes each subproblem inline
+    and the outputs stay byte-identical to the serial run."""
     fa = tmp_path / "in.fa"
     _make_fasta(fa, 5, seed=17)
     ser_dir = tmp_path / "ser"
@@ -184,7 +183,7 @@ def test_worker_failure_recovery(tmp_path, fail_mode):
 
 @pytest.mark.slow
 def test_worker_failure_recovery_cyclic(tmp_path):
-    """-c with failing workers: the per-leaf bonding rounds recompute
+    """-c with dying workers: the per-leaf bonding rounds recompute
     inline and the cyclized GFA matches the serial run."""
     fa = tmp_path / "in.fa"
     _make_tandem_fasta(fa, 3, seed=53)
@@ -193,7 +192,18 @@ def test_worker_failure_recovery_cyclic(tmp_path):
     ser_dir.mkdir()
     fail_dir.mkdir()
     out_ser = _run_cyclic(fa, ser_dir, [])
-    out_fail, err = _run_fail(fa, fail_dir, ["--hosts", "3"], "1",
+    out_fail, err = _run_fail(fa, fail_dir, ["--hosts", "3"], "2",
                               cyclic=True)
     assert "Worker failed" in err, "recovery path never engaged"
     assert out_ser == out_fail, "cyclized GFA differs after worker failures"
+
+
+@pytest.mark.slow
+def test_worker_error_propagates(tmp_path):
+    """An error raised inside a worker (a device error, say) is not
+    recovered from: the run fails with it and never reruns elsewhere."""
+    fa = tmp_path / "in.fa"
+    _make_fasta(fa, 3, seed=17)
+    _out, err = _run_fail(fa, tmp_path, ["--hosts", "2"], "1", rc=1)
+    assert "injected worker failure" in err
+    assert "Worker failed" not in err
